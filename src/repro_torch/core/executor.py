@@ -7,22 +7,34 @@ and replays them over one flat DRAM arena that stays on the device:
 
   * the immutable weight, bias and scale tables are sliced out of the arena
     once, when the executor is built, and stay on the device as contiguous
-    int8 / int32 tensors;
+    tensors (int8 weights and int32 tables on nv_small, bfloat16 weights and
+    float32 biases on nv_full);
   * the activation region of the arena is resident per bucket size, one row
-    per lane, and ops write their outputs into it in place;
-  * every CONV/FC runs through ``kernels/int8_conv`` (the hand-written CUDA
-    kernel on a card, its plain version on the CPU), with the lanes of a
-    batch folded onto the GEMM N axis, so one launch serves the bucket;
+    of bytes per lane, and ops write their outputs into it in place (a bf16
+    surface is a 2-byte-per-element view of those bytes);
+  * every CONV/FC runs through ``kernels/int8_conv`` (nv_small) or
+    ``kernels/bf16_conv`` (nv_full): the hand-written CUDA kernel on a card,
+    its plain version on the CPU, with the lanes of a batch folded onto the
+    GEMM N axis, so one launch serves the bucket;
   * PDP (pooling) and EW (residual add) are plain torch ops.
 
 Execution is eager: no program is built per batch shape, so
 ``compile_count`` stays 0.  (The reference counts XLA compiles there; CUDA
-graph captures will count once the port has them.)  Only the int8 (nv_small)
-datapath is ported; nv_full raises ``NotImplementedError``.
+graph captures will count once the port has them.)
+
+bf16 bytes.  The input is encoded on the host by the port's codec
+(``core/bf16.py``), byte-equal to the reference's ``ml_dtypes``.  On the
+card, every op rounds its float32 result to bfloat16 in the kernel
+(``__float2bfloat16_rn``) or through ``.to(torch.bfloat16)``: both round to
+nearest even, as the reference does, but a NaN comes out as torch's
+``0xFFFF`` (or the kernel's NaN) where ``ml_dtypes`` writes ``0x7FC0``.  The
+reference's ``Session`` does not reject NaN inputs, and neither does the
+port, so NaN bits may differ on the device path; every finite value rounds
+the same.
 
 Port of ``repro.core.executor`` (``_ExecutorBase``, ``BareMetalExecutor`` and
-the int8 op twins).  The single-image and batch paths are one replay: a
-single image is a bucket of one lane.
+the int8 and bf16 op twins).  The single-image and batch paths are one
+replay: a single image is a bucket of one lane.
 """
 
 from __future__ import annotations
@@ -36,8 +48,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import engine, intmath, perfmodel, quant
+from repro_torch.core import bf16, engine, intmath, perfmodel, quant
 from repro_torch.core.tracegen import Trace
+from repro_torch.kernels.bf16_conv import ops as bf16_ops
 from repro_torch.kernels.int8_conv import ops as int8_ops
 
 
@@ -91,19 +104,54 @@ def _add_int8(a, b, mps_a, mps_b, relu):
 
 
 # ---------------------------------------------------------------------------
+# bf16 op twins (nv_full), batch-first: float32 arithmetic, one rounding to
+# bfloat16 at the end, in the reference executor's order
+# ---------------------------------------------------------------------------
+def _pool_bf16(xs, kern, stride, pad, mode):
+    """PDP over (B, C, H, W) bf16 in float: max with -inf fill, average as
+    the f32 sum of the windows in order, divided by the window size (the
+    executor's GAP is this average over the whole surface, as in the
+    reference executor; the VP and ``ref`` take the mean instead)."""
+    x32 = xs.to(torch.float32)
+    h, w = xs.shape[-2:]
+    r, s = kern
+    p = (h + 2 * pad - r) // stride + 1
+    q = (w + 2 * pad - s) // stride + 1
+    if mode == 1:
+        xp = F.pad(x32, (pad, pad, pad, pad), value=-float("inf")) if pad \
+            else x32
+        out = None
+        for win in intmath.windows(xp, r, s, stride, p, q):
+            out = win if out is None else torch.maximum(out, win)
+        return out.to(torch.bfloat16)
+    xp = F.pad(x32, (pad, pad, pad, pad)) if pad else x32
+    acc = None
+    for win in intmath.windows(xp, r, s, stride, p, q):
+        acc = torch.zeros_like(win) + win if acc is None else acc + win
+    return (acc / (r * s)).to(torch.bfloat16)
+
+
+def _add_bf16(a, b, relu):
+    acc = a.to(torch.float32) + b.to(torch.float32)
+    if relu:
+        acc = acc.clamp(min=0.0)
+    return acc.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
 # Descriptor -> op over the resident arena
 # ---------------------------------------------------------------------------
-def _surface_bytes(dims) -> int:
-    """Bytes of an int8 (N, C, H, W) surface of one lane."""
+def _surface_bytes(dims, elem_bytes: int = 1) -> int:
+    """Bytes of an (N, C, H, W) surface of one lane."""
     n, c, h, w = dims
-    return c * h * w
+    return c * h * w * elem_bytes
 
 
 def _overlaps(a: tuple, b: tuple) -> bool:
     return a[0] < b[0] + b[1] and b[0] < a[0] + a[1]
 
 
-def _batch_plan(descs, input_region: tuple):
+def _batch_plan(descs, input_region: tuple, elem_bytes: int = 1):
     """Dataflow analysis of the replay (as in the reference).
 
     ``fwd[i]``: op ``i`` reads exactly the previous producer's destination
@@ -114,9 +162,11 @@ def _batch_plan(descs, input_region: tuple):
     changes only where bytes are read from, never their values.
     """
     n = len(descs)
-    src_r = [(d.src_addr, _surface_bytes(d.src_dims)) for d in descs]
-    dst_r = [(d.dst_addr, _surface_bytes(d.dst_dims)) for d in descs]
-    aux_r = [(d.aux_addr, _surface_bytes(d.src_dims))
+    src_r = [(d.src_addr, _surface_bytes(d.src_dims, elem_bytes))
+             for d in descs]
+    dst_r = [(d.dst_addr, _surface_bytes(d.dst_dims, elem_bytes))
+             for d in descs]
+    aux_r = [(d.aux_addr, _surface_bytes(d.src_dims, elem_bytes))
              if d.unit == "EW" else None for d in descs]
     fwd = [src_r[i] == (dst_r[i - 1] if i else input_region) for i in range(n)]
 
@@ -134,10 +184,11 @@ def _batch_plan(descs, input_region: tuple):
     return fwd, store, store_input
 
 
-def _i32_table(arena0: np.ndarray, off: int, n: int, device) -> torch.Tensor:
-    """Copy ``n`` int32 words out of the byte arena (the slice may be
-    unaligned, so it is copied, never reinterpreted in place)."""
-    raw = np.frombuffer(arena0[off:off + 4 * n].tobytes(), np.int32)
+def _table(arena0: np.ndarray, off: int, n: int, dtype, device) -> torch.Tensor:
+    """Copy ``n`` values of numpy ``dtype`` out of the byte arena (the slice
+    may be unaligned, so it is copied, never reinterpreted in place)."""
+    raw = np.frombuffer(arena0[off:off + np.dtype(dtype).itemsize * n]
+                        .tobytes(), dtype)
     return torch.from_numpy(raw.copy()).to(device)
 
 
@@ -171,10 +222,9 @@ def _op_from_descriptor(d: engine.Descriptor, base: int, act_lo: int,
         cin_g = c // d.groups if d.unit == "CONV" else c * h * w
         wt_n = k * cin_g * (r * s if d.unit == "CONV" else 1)
         wo = d.wt_addr - base
-        wq = torch.from_numpy(arena0[wo:wo + wt_n].view(np.int8).reshape(k, -1)
-                              .copy()).to(device)
-        bias = _i32_table(arena0, d.bias_addr - base, k, device)
-        words = _i32_table(arena0, d.scale_addr - base, k, device)
+        wq = _table(arena0, wo, wt_n, np.int8, device).reshape(k, -1)
+        bias = _table(arena0, d.bias_addr - base, k, np.int32, device)
+        words = _table(arena0, d.scale_addr - base, k, np.int32, device)
 
         if d.unit == "CONV":
             def op(act, y_prev):
@@ -212,6 +262,69 @@ def _op_from_descriptor(d: engine.Descriptor, base: int, act_lo: int,
     return op
 
 
+def _op_from_descriptor_bf16(d: engine.Descriptor, base: int, act_lo: int,
+                             fwd: bool, store: bool, arena0: np.ndarray,
+                             device):
+    """bf16 twin of ``_op_from_descriptor``: f(act, y_prev) -> y.
+
+    ``act`` stays the per-lane activation arena of raw bytes (B, act_bytes)
+    int8, and ``y``/``y_prev`` carry raw bf16 bytes (B, bytes) int8, so both
+    datapaths share one replay loop.  A surface is read as a bfloat16 view
+    of its bytes: surfaces are 64-byte aligned, so the offset and the row
+    width are even (checked when the executor is built).
+    """
+    _, c, h, w = d.src_dims
+    _, k, p, q = d.dst_dims
+    so = d.src_addr - base - act_lo
+    do = d.dst_addr - base - act_lo
+    s_bytes = _surface_bytes(d.src_dims, 2)
+
+    def read_src(act, y_prev):
+        raw = y_prev if fwd else act[:, so:so + s_bytes]
+        return raw.view(torch.bfloat16).reshape(-1, c, h, w)
+
+    def finish(act, y):
+        y = y.reshape(y.shape[0], -1).contiguous().view(torch.int8)
+        if store:
+            act[:, do:do + y.shape[1]] = y
+        return y
+
+    if d.unit in ("CONV", "FC"):
+        r, s = d.kernel
+        cin_g = c // d.groups if d.unit == "CONV" else c * h * w
+        wt_n = k * cin_g * (r * s if d.unit == "CONV" else 1)
+        wq = _table(arena0, d.wt_addr - base, wt_n, np.int16, device) \
+            .view(torch.bfloat16).reshape(k, -1)
+        bias = _table(arena0, d.bias_addr - base, k, np.float32, device)
+
+        if d.unit == "CONV":
+            def op(act, y_prev):
+                y = bf16_ops.conv2d_bf16_batch(read_src(act, y_prev), wq, bias,
+                                               r, d.stride, d.pad, d.groups,
+                                               d.relu)
+                return finish(act, y)
+        else:
+            def op(act, y_prev):
+                xs = read_src(act, y_prev)
+                y = bf16_ops.fc_bf16_batch(xs.reshape(xs.shape[0], -1), wq,
+                                           bias, d.relu)
+                return finish(act, y)
+    elif d.unit == "PDP":
+        def op(act, y_prev):
+            return finish(act, _pool_bf16(read_src(act, y_prev), d.kernel,
+                                          d.stride, d.pad, d.pool_mode))
+    elif d.unit == "EW":
+        ao = d.aux_addr - base - act_lo
+
+        def op(act, y_prev):
+            a = read_src(act, y_prev)
+            b = act[:, ao:ao + s_bytes].view(torch.bfloat16).reshape(-1, c, h, w)
+            return finish(act, _add_bf16(a, b, d.relu))
+    else:
+        raise ValueError(d.unit)
+    return op
+
+
 # ---------------------------------------------------------------------------
 # Executors
 # ---------------------------------------------------------------------------
@@ -244,15 +357,13 @@ class _ExecutorBase:
                  cfg: engine.EngineConfig = engine.NV_SMALL,
                  input_scale: float = 1.0, output_scale: float = 1.0,
                  output_elems: Optional[int] = None):
-        if cfg.dtype == "bf16":
-            raise NotImplementedError("nv_full is ported in a later slice")
-        if cfg.dtype != "int8":
+        if cfg.dtype not in ("int8", "bf16"):
             known = ", ".join(f"{n} (dtype={c.dtype})"
                               for n, c in engine.CONFIGS.items())
             raise NotImplementedError(
-                f"executor backends implement the int8 (nv_small) datapath; "
-                f"engine config {cfg.name!r} declares dtype={cfg.dtype!r}.  "
-                f"Known engine configs: {known}")
+                f"executor backends implement the int8 (nv_small) and bf16 "
+                f"(nv_full) datapaths; engine config {cfg.name!r} declares "
+                f"dtype={cfg.dtype!r}.  Known engine configs: {known}")
         self.cfg = cfg
         self.trace = trace
         self.input_scale = input_scale
@@ -262,11 +373,14 @@ class _ExecutorBase:
             raise ValueError("trace contains no engine ops")
         # eager execution builds no per-shape program (see module docstring)
         self.compile_count = 0
-        # Arena geometry, derived from the trace alone (byte addresses).
+        # Arena geometry, derived from the trace alone.  All addresses are
+        # byte addresses; surfaces take elem_bytes per element (1 for int8,
+        # 2 for bf16, as core/memory.plan_arena lays them out).
+        eb = cfg.elem_bytes
         hi = engine.DRAM_BASE
         for d in self.descs:
-            hi = max(hi, d.dst_addr + _surface_bytes(d.dst_dims),
-                     d.src_addr + _surface_bytes(d.src_dims))
+            hi = max(hi, d.dst_addr + _surface_bytes(d.dst_dims, eb),
+                     d.src_addr + _surface_bytes(d.src_dims, eb))
         for a, b in weight_image.items():
             hi = max(hi, a + len(b))
         self.base = engine.DRAM_BASE
@@ -287,22 +401,32 @@ class _ExecutorBase:
         self.input_dims = self.descs[0].src_dims
         self.output_off = self.descs[-1].dst_addr - self.base
         self.output_dims = self.descs[-1].dst_dims
-        self.output_elems = output_elems or _surface_bytes(self.output_dims)
-        self.output_bytes = self.output_elems
+        self.output_elems = output_elems or \
+            _surface_bytes(self.output_dims)          # ELEMENT count
+        self.output_bytes = self.output_elems * eb    # arena-slice length
 
     def _quant_in(self, x: np.ndarray) -> np.ndarray:
-        """Input image -> int8 surface bytes (int8 input passes through)."""
+        """Input image -> the engine's surface encoding: int8 (an int8 input
+        passes through) or bfloat16 bit patterns (uint16, the port's codec)."""
         x = np.asarray(x)
-        if x.dtype == np.int8:
-            return x
-        return quant.quantize_act(x, self.input_scale)
+        if self.cfg.dtype == "int8":
+            if x.dtype == np.int8:
+                return x
+            return quant.quantize_act(x, self.input_scale)
+        return bf16.f32_to_bf16_bits(x)
 
     def _finish_out(self, y_bytes: np.ndarray) -> ExecResult:
         """Raw output-surface bytes (last axis = ``output_bytes``) ->
-        ``ExecResult`` with the int8 logits and their float dequantisation."""
-        y_i8 = y_bytes.view(np.int8)
-        return ExecResult(output_int8=y_i8,
-                          output=y_i8.astype(np.float32) * self.output_scale)
+        ``ExecResult``.  ``output_int8`` carries the raw engine bytes: int8
+        logits for nv_small, the bf16 byte stream (uint8) for nv_full (as
+        ``VpResult`` has them); ``output`` is always float32."""
+        if self.cfg.dtype == "int8":
+            y_i8 = y_bytes.view(np.int8)
+            return ExecResult(output_int8=y_i8,
+                              output=y_i8.astype(np.float32) * self.output_scale)
+        y_u8 = np.ascontiguousarray(y_bytes).view(np.uint8)
+        out = bf16.bf16_bits_to_f32(y_u8.view(np.uint16)) * self.output_scale
+        return ExecResult(output_int8=y_u8, output=out)
 
     # -- arena integrity -----------------------------------------------------
     def weight_checksum(self) -> int:
@@ -347,35 +471,46 @@ class BareMetalExecutor(_ExecutorBase):
     def __init__(self, *args, device="cuda", **kw):
         self.device = resolve_device(device)
         super().__init__(*args, **kw)
-        self.gemm_kernel = (perfmodel.KERNEL_CUDA_INT8
-                            if self.device.type == "cuda"
-                            else perfmodel.KERNEL_TORCH_INT8)
+        cuda = self.device.type == "cuda"
+        int8 = self.cfg.dtype == "int8"
+        self.gemm_kernel = {
+            (True, True): perfmodel.KERNEL_CUDA_INT8,
+            (True, False): perfmodel.KERNEL_TORCH_INT8,
+            (False, True): perfmodel.KERNEL_CUDA_BF16,
+            (False, False): perfmodel.KERNEL_TORCH_BF16}[(int8, cuda)]
+        self._op_builder = (_op_from_descriptor if int8
+                            else _op_from_descriptor_bf16)
         self.kernel_plan = [self.gemm_kernel if d.unit in ("CONV", "FC")
                             else perfmodel.KERNEL_VPU for d in self.descs]
         # Only the activation region [act_lo, act_hi) carries a lane axis;
         # the weight tables are shared by every lane.
+        eb = self.cfg.elem_bytes
         act_offs = []
         for d in self.descs:
-            act_offs.append((d.src_addr - self.base,
-                             d.src_addr - self.base + _surface_bytes(d.src_dims)))
-            act_offs.append((d.dst_addr - self.base,
-                             d.dst_addr - self.base + _surface_bytes(d.dst_dims)))
+            regions = [(d.src_addr, d.src_dims), (d.dst_addr, d.dst_dims)]
             if d.unit == "EW":
-                act_offs.append((d.aux_addr - self.base,
-                                 d.aux_addr - self.base + _surface_bytes(d.src_dims)))
+                regions.append((d.aux_addr, d.src_dims))
+            act_offs += [(a - self.base, a - self.base + _surface_bytes(dims, eb))
+                         for a, dims in regions]
         self._act_lo = min(lo for lo, _ in act_offs)
         self._act_hi = max(hi for _, hi in act_offs)
-        in_region = (self.base + self.input_off, _surface_bytes(self.input_dims))
-        self._fwd, self._store, self._store_input = _batch_plan(self.descs,
-                                                                in_region)
+        if eb == 2 and any((lo - self._act_lo) % 2 or (hi - self._act_lo) % 2
+                           for lo, hi in act_offs):
+            # a bf16 surface is read as a 2-byte view of the byte arena
+            raise ValueError("bf16 surfaces must start and end on even byte "
+                             "offsets of the activation region")
+        in_region = (self.base + self.input_off,
+                     _surface_bytes(self.input_dims, eb))
+        self._fwd, self._store, self._store_input = _batch_plan(
+            self.descs, in_region, eb)
         self._ops: Optional[list] = None
         self._act: Dict[int, torch.Tensor] = {}   # bucket size -> (B, act)
 
     def _ensure_ops(self) -> list:
         if self._ops is None:
-            self._ops = [_op_from_descriptor(d, self.base, self._act_lo,
-                                             self._fwd[i], self._store[i],
-                                             self.arena0, self.device)
+            self._ops = [self._op_builder(d, self.base, self._act_lo,
+                                          self._fwd[i], self._store[i],
+                                          self.arena0, self.device)
                          for i, d in enumerate(self.descs)]
         return self._ops
 
@@ -393,11 +528,11 @@ class BareMetalExecutor(_ExecutorBase):
         self._act.clear()
 
     def _stage_input(self, X: np.ndarray):
-        """Quantise on the host, copy to the device, seed the arena."""
+        """Encode on the host, copy the bytes to the device, seed the arena."""
         xq = self._quant_in(X)
         n = xq.shape[0]
-        xs = torch.from_numpy(np.ascontiguousarray(xq).reshape(n, -1)) \
-            .to(self.device)
+        xs = torch.from_numpy(np.ascontiguousarray(xq).reshape(n, -1)
+                              .view(np.int8)).to(self.device)
         act = self._act_state(n)
         if self._store_input:
             lo = self.input_off - self._act_lo

@@ -8,8 +8,8 @@ tensors, byte-equal to the reference on every input in the engine's domain:
 shift counts ``pre``/``post`` in [0, 31], which ``quant.fixed_point``
 guarantees (pre <= 16, post <= 30).
 
-These are the plain versions the CUDA kernel (``kernels/int8_conv``) is held
-against, and the arithmetic of the executor's PDP/EW ops.  This is a leaf
+These are the plain versions the CUDA kernels (``kernels/int8_conv``,
+``kernels/int8_gemm``) are held against, and the arithmetic of the executor's PDP/EW ops.  This is a leaf
 module: it imports only torch.
 """
 
@@ -68,6 +68,12 @@ def row_epilogue(acc, bias, words, relu: bool) -> torch.Tensor:
     if relu:
         out = out.clamp(min=0)
     return clip8(out)
+
+
+def col_epilogue(acc, bias, words, relu: bool) -> torch.Tensor:
+    """The same SDP epilogue per channel on the N (column) axis, as the W8A8
+    GEMM has it: ``acc`` (M, N) int32; ``bias``/``words`` (N,) int32."""
+    return row_epilogue(acc.t(), bias, words, relu).t().contiguous()
 
 
 def windows(xp: torch.Tensor, r: int, s: int, stride: int, p: int, q: int):

@@ -1,8 +1,9 @@
 """Model compiler: (graph, fp32 params, calibration) -> Loadable.
 
 The port's own copy of ``repro.core.loadable``: ``repro_torch`` imports nothing
-of ``repro``.  Only the int8 (nv_small) datapath is ported; the bf16
-(nv_full) datapath raises ``NotImplementedError`` until its slice lands.
+of ``repro``.  Its bf16 (nv_full) builder writes the weight image through
+the port's own codec (``core/bf16.py``) where the reference uses
+``ml_dtypes``; the bytes are the same.
 
 This is the role the NVDLA compiler plays in the paper's Fig. 1: it turns a
 Caffe-style model into (a) a fully static sequence of engine descriptors and
@@ -21,7 +22,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core import engine, memory, quant
+from repro_torch.core import bf16, engine, memory, quant
 from repro_torch.core.graph import NetGraph
 
 
@@ -115,7 +116,7 @@ def build_loadable(graph: NetGraph, params: Dict[str, Dict[str, np.ndarray]],
                    cal: quant.CalibrationTable,
                    cfg: engine.EngineConfig = engine.NV_SMALL) -> Loadable:
     if cfg.dtype == "bf16":
-        raise NotImplementedError("nv_full is ported in a later slice")
+        return _build_loadable_bf16(graph, params, cal, cfg)
     if cfg.dtype != "int8":
         known = ", ".join(f"{n} (dtype={c.dtype})"
                           for n, c in engine.CONFIGS.items())
@@ -197,3 +198,56 @@ def build_loadable(graph: NetGraph, params: Dict[str, Dict[str, np.ndarray]],
                     input_scale=cal.scales["data"],
                     output_scale=cal.scales[graph.output])
 
+
+def _build_loadable_bf16(graph: NetGraph, params, cal, cfg) -> Loadable:
+    """nv_full path: bf16 weights/activations, float accumulate, no requant."""
+    plan = memory.plan_arena(graph, elem_bytes=2)
+    by = graph.by_name()
+    image = np.zeros(plan.weight_end - engine.DRAM_BASE, np.uint8)
+    descs: List[engine.Descriptor] = []
+    names: List[str] = []
+
+    def blit(addr: int, data: np.ndarray):
+        off = addr - engine.DRAM_BASE
+        raw = data.tobytes()
+        image[off:off + len(raw)] = np.frombuffer(raw, np.uint8)
+
+    def dims(name: str) -> tuple:
+        c, h, w = by[name].out_shape if by[name].out_shape else graph.input_shape
+        return (1, c, h, w)
+
+    for l in graph.layers:
+        if l.type in ("input", "concat"):
+            continue
+        src = l.inputs[0]
+        d = engine.Descriptor(
+            unit={"conv": "CONV", "fc": "FC", "pool": "PDP", "add": "EW"}[l.type],
+            src_addr=plan.surfaces[src].addr, src_dims=dims(src),
+            dst_addr=plan.surfaces[l.name].addr, dst_dims=dims(l.name), relu=l.relu)
+        if l.type in ("conv", "fc"):
+            p = params[l.name]
+            kk = l.kernel if l.type == "conv" else 1
+            blit(plan.surfaces[f"{l.name}.w"].addr,
+                 bf16.f32_to_bf16_bits(p["w"].reshape(p["w"].shape[0], -1)))
+            blit(plan.surfaces[f"{l.name}.b"].addr, p["b"].astype(np.float32))
+            d.wt_addr = plan.surfaces[f"{l.name}.w"].addr
+            d.bias_addr = plan.surfaces[f"{l.name}.b"].addr
+            d.kernel = (kk, kk)
+            d.stride, d.pad = l.stride, l.pad
+            d.groups = l.groups
+        elif l.type == "pool":
+            d.pool_mode = 1 if l.pool_mode == "max" else 2
+            if l.pool_mode == "gap":
+                c, h, w = by[src].out_shape
+                d.kernel, d.stride, d.pad = (h, w), h, 0
+            else:
+                d.kernel = (l.kernel, l.kernel)
+                d.stride, d.pad = l.stride, l.pad
+        elif l.type == "add":
+            d.residual = True
+            d.aux_addr = plan.surfaces[l.inputs[1]].addr
+        descs.append(d)
+        names.append(l.name)
+    return Loadable(graph=graph, cfg=cfg, plan=plan, descriptors=descs,
+                    desc_layers=names, dram_image=image, input_scale=1.0,
+                    output_scale=1.0)

@@ -3,8 +3,8 @@
 Shape arithmetic of CONV/FC descriptors (contraction length, GEMM columns,
 MACs), the coalescing bucket ladder, and the names of the port's kernels.
 Kernel selection (``select_kernel``) and the whole-model cycle model
-(``model_cost``) come with a later slice: on this slice every nv_small CONV/FC
-runs through one kernel, so there is nothing to select.
+(``model_cost``) come with a later slice: each datapath's CONV/FC run through
+one kernel (int8 on nv_small, bf16 on nv_full), so there is nothing to select.
 """
 
 from __future__ import annotations
@@ -15,6 +15,11 @@ from repro_torch.core import engine
 # written sm_90a kernel; on a CPU tensor through its plain PyTorch version.
 KERNEL_CUDA_INT8 = "cuda_int8_conv"    # kernels/int8_conv/csrc/int8_conv.cu
 KERNEL_TORCH_INT8 = "torch_int8_plain"  # kernels/int8_conv/ref.py
+KERNEL_CUDA_BF16 = "cuda_bf16_conv"    # kernels/bf16_conv/csrc/bf16_conv.cu
+KERNEL_TORCH_BF16 = "torch_bf16_plain"  # kernels/bf16_conv/ref.py
+# W8A8 GEMM of ``kernels/int8_gemm.quantized_matmul`` (no executor uses it)
+KERNEL_CUDA_INT8_GEMM = "cuda_int8_gemm"        # kernels/int8_gemm/csrc/int8_gemm.cu
+KERNEL_TORCH_INT8_GEMM = "torch_int8_gemm_plain"  # kernels/int8_gemm/ref.py
 KERNEL_VPU = "vpu"                     # PDP / EW: no GEMM, plain torch ops
 
 # Largest contraction K for which a single f32 GEMM of int8 operands is

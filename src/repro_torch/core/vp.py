@@ -1,9 +1,10 @@
 """Virtual platform (paper Fig. 3): execute a Loadable, log every interface
+transaction.
 
 The port's own copy of ``repro.core.vp``: ``repro_torch`` imports nothing
-of ``repro``.  Only the int8 (nv_small) datapath is ported; the bf16
-(nv_full) datapath raises ``NotImplementedError`` until its slice lands.
-transaction.
+of ``repro``.  Its bf16 (nv_full) surfaces go through the port's codec
+(``core/bf16.py``) where the reference uses ``ml_dtypes``; the bytes are the
+same.
 
 The real flow runs the NVDLA compiler's output on a QEMU+SystemC co-simulation and
 captures the CSB (register) and DBB (data backbone) adaptors' logs.  Our VP is the
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core import engine, memory, quant, refops
+from repro_torch.core import bf16, engine, memory, quant, refops
 from repro_torch.core.loadable import Loadable
 
 
@@ -95,9 +96,12 @@ class VirtualPlatform:
     def run(self, x: np.ndarray) -> VpResult:
         """Execute one inference.  ``x``: float32 (C,H,W) input image."""
         ld = self.ld
-        if ld.cfg.dtype != "int8":
-            raise NotImplementedError("nv_full is ported in a later slice")
-        in_bytes = quant.quantize_act(x, ld.input_scale).tobytes()
+        int8 = ld.cfg.dtype == "int8"
+        if int8:
+            xq = quant.quantize_act(x, ld.input_scale)
+            in_bytes = xq.tobytes()
+        else:
+            in_bytes = bf16.f32_to_bf16_bits(x).tobytes()
         # Host (Zynq in the paper) preloads the input image — logged as DBB writes
         # so weight extraction sees the input surface as preloaded data.
         self._write_dram(ld.input_surface.addr, in_bytes)
@@ -105,15 +109,19 @@ class VirtualPlatform:
         for d, lname in zip(ld.descriptors, ld.desc_layers):
             for addr, val in d.to_reg_writes():
                 self._csb_write(addr, val)
-            self._execute_int8(d)
+            self._execute(d)
             self._csb_read(engine.reg_addr(d.unit, "STATUS"), engine.DONE)
 
         out_sf = ld.output_surface
         raw = self._read_dram(out_sf.addr, out_sf.size, log=False)
-        out_i8 = np.frombuffer(raw, np.int8).copy()
         n = int(np.prod(ld.graph.by_name()[ld.graph.output].out_shape))
-        out_i8 = out_i8[:n]
-        out = out_i8.astype(np.float32) * ld.output_scale
+        if int8:
+            out_i8 = np.frombuffer(raw, np.int8).copy()
+            out_i8 = out_i8[:n]
+            out = out_i8.astype(np.float32) * ld.output_scale
+        else:
+            out_i8 = np.frombuffer(raw, np.uint8).copy()
+            out = bf16.bf16_bits_to_f32(np.frombuffer(raw, np.uint16)[:n])
         log = "\n".join(self._lines)
         nw = sum("csb_adaptor: iswrite=1" in l for l in self._lines)
         nr = sum("csb_adaptor: iswrite=0" in l for l in self._lines)
@@ -123,6 +131,12 @@ class VirtualPlatform:
                         n_csb_writes=nw, n_csb_reads=nr, dbb_bytes=dbb_b)
 
     # -- engine functional model ---------------------------------------------
+    def _execute(self, d: engine.Descriptor):
+        if self.ld.cfg.dtype == "int8":
+            self._execute_int8(d)
+        else:
+            self._execute_bf16(d)
+
     def _surface_i8(self, addr: int, dims: tuple) -> np.ndarray:
         n, c, h, w = dims
         raw = self._read_dram(addr, c * h * w, log=True)
@@ -173,3 +187,48 @@ class VirtualPlatform:
         else:
             raise ValueError(d.unit)
 
+    def _execute_bf16(self, d: engine.Descriptor):
+        _, c, h, w = d.src_dims
+        _, k, p, q = d.dst_dims
+
+        def surf(addr, dims):
+            n_, c_, h_, w_ = dims
+            raw = self._read_dram(addr, c_ * h_ * w_ * 2)
+            return bf16.bf16_bits_to_f32(np.frombuffer(raw, np.uint16)) \
+                .reshape(c_, h_, w_)
+
+        def write(addr, y):
+            self._write_dram(addr, bf16.f32_to_bf16_bits(y).tobytes())
+
+        if d.unit in ("CONV", "FC"):
+            r, s = d.kernel
+            cin_g = c // d.groups if d.unit == "CONV" else c * h * w
+            wraw = self._read_dram(d.wt_addr, k * cin_g * (r * s if d.unit == "CONV" else 1) * 2)
+            wq = bf16.bf16_bits_to_f32(np.frombuffer(wraw, np.uint16)).reshape(k, -1)
+            braw = self._read_dram(d.bias_addr, k * 4)
+            bias = np.frombuffer(braw, np.float32)
+            x = surf(d.src_addr, d.src_dims)
+            if d.unit == "CONV":
+                y = refops.conv_bf16(x, wq, bias, r, d.stride, d.pad, d.groups, d.relu)
+            else:
+                y = refops.fc_bf16(x, wq, bias, d.relu)
+            write(d.dst_addr, y)
+        elif d.unit == "PDP":
+            x = surf(d.src_addr, d.src_dims)
+            r, s = d.kernel
+            if d.pool_mode == 1:
+                y = refops.pool_f32(x, r, s, d.stride, d.pad, "max")
+            elif (r, s) == (h, w) and d.pad == 0:
+                y = x.mean(axis=(1, 2), keepdims=True)
+            else:
+                y = refops.pool_f32(x, r, s, d.stride, d.pad, "avg")
+            write(d.dst_addr, y)
+        elif d.unit == "EW":
+            a = surf(d.src_addr, d.src_dims)
+            b = surf(d.aux_addr, d.src_dims)
+            y = a + b
+            if d.relu:
+                y = np.maximum(y, 0)
+            write(d.dst_addr, y)
+        else:
+            raise ValueError(d.unit)

@@ -51,6 +51,7 @@ def pad_batch(xs, bucket: int) -> np.ndarray:
 class _Net:
     name: str
     executor: object
+    dtype: str                           # the engine datapath: int8 or bf16
     input_elems: Optional[int] = None
 
 
@@ -85,9 +86,12 @@ class Session:
         ex = registry.create(backend or self.default_backend, artifacts,
                              device=self.device)
         dims = getattr(ex, "input_dims", None)
+        # a capabilities() failure must be loud at load time: a silent int8
+        # default would mis-handle a bf16 net's inputs at serve time
+        dtype = ex.capabilities().dtype
         self._order.append(name)
         self._nets[name] = _Net(
-            name=name, executor=ex,
+            name=name, executor=ex, dtype=dtype,
             input_elems=int(np.prod(dims[1:])) if dims is not None else None)
         return name
 
@@ -113,14 +117,18 @@ class Session:
     # -- serving -------------------------------------------------------------
     def _check_input(self, n: _Net, x) -> np.ndarray:
         """Fail fast on a malformed input; canonicalise to a flat int8
-        (pre-quantised, passed through) or float32 vector."""
+        (pre-quantised, passed through) or float32 vector.
+
+        A bf16 (nv_full) net has no pre-quantised int8 notion: every input,
+        int8 included, becomes float32, so all of its lanes share one dtype.
+        Each ``run_batch`` serves one net, so a batch never mixes datapaths."""
         x = np.asarray(x)
         want = n.input_elems
         if want is not None and (x.dtype == object or x.size != want):
             raise ValueError(
                 f"bad input for network {n.name!r}: got dtype={x.dtype} "
                 f"size={x.size}, expected {want} elements")
-        if x.dtype != np.int8:
+        if x.dtype != np.int8 or n.dtype != "int8":
             x = x.astype(np.float32, copy=False)
         return x.reshape(-1)
 
@@ -135,8 +143,9 @@ class Session:
         return next(b for b in BUCKETS if b >= lanes)
 
     def run_batch(self, X: np.ndarray, net: Optional[str] = None) -> ExecResult:
-        """Batched inference over ``X`` of shape ``(N, ...)``, byte-exact
-        (int8) against N sequential ``run`` calls."""
+        """Batched inference over ``X`` of shape ``(N, ...)``: byte-exact
+        against N sequential ``run`` calls (int8), bit-identical per lane
+        (bf16)."""
         n = self._resolve(net)
         xs = [self._check_input(n, x) for x in np.asarray(X)]
         outs = []

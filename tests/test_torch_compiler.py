@@ -107,10 +107,14 @@ def test_stages_run_individually_and_cache():
         pipe.run_stage("cost_model")
 
 
-def test_nv_full_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="nv_full"):
-        tpipe.CompilerPipeline(tgraph.lenet5(), cfg=tengine.NV_FULL,
-                               use_cache=False).run()
+def test_nv_full_waits_for_its_slice(tmp_path):
+    """nv_full, once left to a later slice, now compiles; the bundle's
+    manifest carries the config through save and load."""
+    art = tpipe.CompilerPipeline(tgraph.lenet5(), cfg=tengine.NV_FULL,
+                                 use_cache=False).run()
+    assert art.cfg == tengine.NV_FULL and art.vp_output_int8.dtype == np.uint8
+    art.save(tmp_path)
+    assert tpipe.Artifacts.load(tmp_path).cfg == tengine.NV_FULL
 
 
 def test_params_from_reference_checks_names_shapes_dtypes():
